@@ -1,12 +1,11 @@
-"""nic — TPU-native neural image/LUT compression framework.
+"""nic — neural image/LUT compression in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
-reference repo 21K1113/Neural_Image_Compression_V2 (PyTorch), redesigned
-TPU-first:
+A JAX/XLA/Pallas implementation of the capabilities of the reference repo
+21K1113/Neural_Image_Compression_V2 (PyTorch):
 
 - ``nic.core``     quantization / positional encodings / metrics (pure fns)
 - ``nic.grids``    multiresolution feature pyramid (G0/G1) + vectorized sampling
-- ``nic.kernels``  Pallas fused decode kernels (coords → PE → gather → MLP → RGB)
+- ``nic.kernels``  the fused decode kernel (Pallas through Triton) + decode dispatch
 - ``nic.models``   tiny-MLP decoder + conv autoencoders (2D/3D)
 - ``nic.train``    jitted train loops (QAT schedule, LOD sampling, crops)
 - ``nic.parallel`` device-mesh sharding (data/pixel parallel via jax.sharding)
@@ -24,27 +23,24 @@ import os as _os
 def _setup_compilation_cache() -> None:
     """Enable JAX's persistent compilation cache for this process.
 
-    The lane-packed 3D train kernel's FIRST Mosaic compile costs ~10 min
-    server-side (NOTES_r3.md session 4); every later process would pay it
-    again without a persistent cache. Default cache dir is ``.jax_cache/``
-    at the repo root (gitignored). Opt out with ``NIC_COMPILE_CACHE=0``;
-    relocate with ``NIC_COMPILE_CACHE_DIR``. Failures are non-fatal: a
-    backend whose executables don't serialize just skips the cache.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it and nothing
+    here overrides it. Otherwise the cache lives in ``.jax_cache/`` at the
+    repo root (gitignored): a fixed path, so a later process finds it.
+    Opt out with ``NIC_COMPILE_CACHE=0``.
     """
     if _os.environ.get("NIC_COMPILE_CACHE", "1").lower() in ("0", "off", ""):
         return
-    path = _os.environ.get("NIC_COMPILE_CACHE_DIR") or _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")
-    try:
-        import jax
+    import jax
 
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        path = _os.path.join(
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache")
+        _os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-        # Cache anything that took >1s to compile; small entries included.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    # cache anything that took >1s to compile; small entries included
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 
 _setup_compilation_cache()

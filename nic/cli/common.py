@@ -56,7 +56,7 @@ def maybe_mesh(args, log: RunLog):
 
 def save_name(project: str, args) -> str:
     base = os.path.basename(args.image_path)
-    return f"{project}_tpu_{base}_{args.num_epochs}_{args.num_bits}"
+    return f"{project}_jax_{base}_{args.num_epochs}_{args.num_bits}"
 
 
 def run_training(trainer, args, log: RunLog, writer: ScalarWriter | None,

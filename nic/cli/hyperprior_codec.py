@@ -82,7 +82,6 @@ def run(argv=None) -> dict:
         return res
 
     from nic.io.bitstream import read_nicx
-    from nic.obs.integrity import verified_result
 
     blob, model = read_nicx(args.bitstream)
     if model.get("params_digest") != info["params_digest"]:
@@ -92,8 +91,7 @@ def run(argv=None) -> dict:
         if not args.allow_model_mismatch:
             raise ValueError(msg + " — pass --allow_model_mismatch to force")
         print("WARNING:", msg)
-    # SDC-guarded like every CLI-reported decode (nic/obs/integrity.py)
-    rec = verified_result(lambda: codec.decompress(blob))
+    rec = codec.decompress(blob)
     out = args.out or (os.path.splitext(args.bitstream)[0] + ".png")
     from PIL import Image
 

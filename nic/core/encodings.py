@@ -14,8 +14,8 @@ Semantics parity with the reference repo's live encoders
   (utils.py:211-223). We reproduce that zero row exactly: it is part of the
   decoder-input function class the reference trains on.
 
-Everything is pure jnp, shape-static, jit/vmap/grad-safe, and runs on the
-VPU (no gathers).
+Everything is pure jnp, shape-static, jit/vmap/grad-safe, and elementwise
+(no gathers).
 """
 
 from __future__ import annotations

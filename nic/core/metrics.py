@@ -6,7 +6,7 @@ Parity notes vs the reference (21K1113/Neural_Image_Compression_V2):
   for 8-bit, ``Projects/utils.py:117-130``), which inflates PSNR by
   ``20*log10(256/255) ≈ 0.034 dB`` vs the standard 255 convention the
   author later standardized on (memo.txt:17-24). Pass ``max_value=255.0``
-  for the standard number; BASELINE.md reports the 255 convention.
+  for the standard number.
 - ``average_psnr`` is the per-frame mean (utils.py:134-145).
 - ``safe_statistics`` mirrors utils.py:149-181 (max/min/mean/var over
   finite values + NaN/Inf flags) but returns a dict instead of printing.

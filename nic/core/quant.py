@@ -131,7 +131,7 @@ def code_dtype(bits: int):
 # ---------------------------------------------------------------------------
 # Sub-byte bit packing (framework extension — the reference always stores one
 # uint8 per code regardless of FP_BITS, fp_def.py:250-255, wasting 8/b× space;
-# the bpp accounting in BASELINE.md counts true bits, so we actually pack).
+# the bpp accounting counts true bits, so we actually pack).
 # Host-side numpy: artifact I/O stays off-device.
 # ---------------------------------------------------------------------------
 
@@ -142,7 +142,7 @@ def pack_bits(codes: np.ndarray, bits: int) -> np.ndarray:
     TRUE bit stream: code i occupies absolute bits [i·b, (i+1)·b),
     LSB-first, straddling byte boundaries when b ∤ 8 — the payload is
     exactly ``ceil(count·b / 8)`` bytes for every b ∈ [1, 8], so the bpp
-    accounting (BASELINE.md) counts real payload bytes at any bit width.
+    accounting counts real payload bytes at any bit width.
     Layout matches the native ``nic_pack_bits`` exactly (artifacts are
     interchangeable between builds), and for b | 8 (1, 2, 4, 8 — the
     reference's sweep grid) it coincides with the historical

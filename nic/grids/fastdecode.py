@@ -17,7 +17,7 @@ so we precompute ON THE GRID (tiny matmuls, done once per decode):
 
 and the per-pixel first layer becomes a nearest upsample of P plus a
 bi/tri-linear sample of C1 plus broadcast row/col PE vectors — all in
-H-lane (64/128) space, the layout the VPU/MXU want. Per-pixel matmul work
+H-wide (64) rows. Per-pixel matmul work
 drops from 73·H + H·H + H·3 to H·H + H·3 (≈ 2×), and the [N, 73] feature
 matrix never exists. Exact to float rounding (verified vs the reference
 path in tests/test_fastdecode.py), including the G1 step==2 raw-sum quirk.

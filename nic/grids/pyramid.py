@@ -10,7 +10,7 @@ forces a single level. Grids initialise uniformly in the quantizer range
 ``[q_min, q_max]`` (fp_def.py:48-55).
 
 Represented as a tuple of jnp arrays — a pytree that flows through
-jit/grad/optax directly (the TPU-native analog of the reference's list of
+jit/grad/optax directly (the JAX analog of the reference's list of
 ``requires_grad`` tensors, cf. its test04/test05 probes).
 """
 

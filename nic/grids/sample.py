@@ -2,14 +2,13 @@
 
 Reimplements the reference's ``create_g0_g1{,_3d,_3d_v2}`` block assembly
 (``Projects/fp_def.py:81-223`` + ``Projects/image_compression.py:71-211`` of
-21K1113/Neural_Image_Compression_V2) the TPU way:
+21K1113/Neural_Image_Compression_V2) the XLA way:
 
 - instead of flat pointwise gathers over N = n^d coordinates, indices are
   **separable per axis** (every output block is an axis-aligned lattice
   ``floor((arange(n) + origin) * step)``), so each corner is two cheap 1-D
-  ``take``s per axis instead of an N-point gather — XLA lowers these to
-  strided VMEM reads, and the same structure is what the fused Pallas
-  kernel exploits;
+  ``take``s per axis instead of an N-point gather, which XLA lowers to
+  strided reads;
 - corner order is ``itertools.product((0,1), repeat=ndim)`` over
   (axis0, axis1[, axis2]) offsets, which under the coordinate→grid-axis
   convention below is element-for-element the reference's
@@ -121,11 +120,9 @@ def _axis_take_lattice(src, origin, step: float, n: int, off: int, axis: int):
 
     Why it exists: ``jnp.take`` with these repeating lattice indices
     differentiates to a scatter-add, which looked like the train step's
-    gather bottleneck. **Measured negative on TPU** (r3 queue4 + A/B):
-    the dense form is 18x slower forward (2.71 vs 0.15 ms) and 3.8x
-    slower fwd+bwd (10.4 vs 2.75 ms) than take/scatter — repeat +
-    dynamic_slice materializes far more bytes than the scatter costs.
-    Kept opt-in (``lattice=True``) as a documented negative; default off.
+    gather bottleneck. It measured slower than take/scatter, forward and
+    backward: repeat + dynamic_slice materializes far more bytes than the
+    scatter costs. Kept opt-in (``lattice=True``); default off.
 
     step < 1 callers must pre-pad ``src`` by one trailing node along
     ``axis`` (the covering node window can overshoot the last used node
@@ -348,8 +345,8 @@ def decoder_input(
 
     # crop-lattice specializations (integer origins + power-of-two step):
     # - lattice: dense slice/repeat FORWARD (scatter-free VJP by XLA
-    #   transpose) — measured SLOWER than take/scatter on TPU, opt-in
-    #   negative (see _axis_take_lattice);
+    #   transpose) — measured slower than take/scatter, opt-in (see
+    #   _axis_take_lattice);
     # - grid_vjp="dense": take forward (bit-identical) + hand-written
     #   phase-reshape-sum backward (see _axis_take_dense_vjp)
     on_lattice = (

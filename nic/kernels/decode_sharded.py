@@ -1,32 +1,11 @@
-"""Multi-device fused decode: the Pallas kernels scaled over a device mesh.
+"""Multi-device decode: the single-device decode shard_mapped over a mesh.
 
-The fused decode kernels (nic.kernels.decode_fused_v2 for 2D images,
-nic.kernels.decode_fused_3d for 3D/spatiotemporal volumes) are
-single-device programs. This module scales them across a
-``jax.sharding.Mesh`` with ``shard_map``: the output's outermost pixel
-axis — image ROWS in 2D, FRAMES in 3D — splits into one contiguous block
-per device and every device runs the UNCHANGED kernel on its block.
-
-This is the coordinate-network analogue of sequence parallelism
-(SURVEY.md §5 "long-context" row: the flattened pixel axis is the
-sequence). The parallel structure is embarrassingly clean because the
-kernels' operands are separable per output block:
-
-- 2D: the host/XLA column stage runs once (replicated — it is ~3% of the
-  decode and cell-resolution small); the folded P plane and row-PE table
-  slice disjointly per row block, and the folded C1 plane needs exactly
-  ONE overlapping node row (the interpolation halo), which is duplicated
-  host-side into the per-device stack rather than exchanged on ICI. No
-  collective runs in the hot path; the only cross-device traffic is
-  XLA's gather of the output blocks.
-- 3D: frames are the kernel's outermost grid axis and the frame
-  interpolation happens in the host/XLA stage, so the per-frame P/C1
-  planes split disjointly — not even a halo is needed.
-
-Reference semantics are byte-identical to the single-device kernels
-(parity-tested in tests/test_multidevice.py); the reference itself is
-single-GPU (SURVEY.md §2: no torch.distributed anywhere), so this whole
-axis is new capability, not a port.
+The output's outermost axis (image rows in 2D, frames in 3D) splits into
+one contiguous block per device, and each device decodes its block with
+the unchanged single-device decode (:func:`nic.kernels.decode.decode`) at
+a row/frame origin. The grids and MLP are replicated, every read is local,
+and no collective runs; the only cross-device traffic is gathering the
+output blocks.
 """
 
 from __future__ import annotations
@@ -34,160 +13,38 @@ from __future__ import annotations
 import math
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
+
+from nic.kernels.decode import decode
 from nic.parallel.mesh import shard_map_nocheck
 
-from nic.kernels.decode_fused_3d import _call3, _prepare_3d
-from nic.kernels.decode_fused_v2 import _call, _prepare_2d
-
-__all__ = ["decode_image_fused_sharded", "decode_volume_fused_sharded"]
+__all__ = ["decode_sharded", "shardable"]
 
 
-def _mesh_devices(mesh) -> int:
-    return math.prod(mesh.devices.shape)
+def shardable(ns, mesh) -> bool:
+    """Whether the outermost axis of an ``ns`` decode splits evenly over
+    ``mesh``'s devices."""
+    return mesh is not None and ns[0] % math.prod(mesh.devices.shape) == 0
 
 
-def decode_image_fused_sharded(
-    fp, mlp, mip_level: int, mesh, *, image_size: int, mip_to_level: dict,
-    pe_channels: int, use_tri_pe: bool = True, g1_quirk: bool = True,
-    dtype=None, out_dtype=jnp.float32, gelu: str = "exact",
-):
-    """2D fused decode with image rows sharded over ``mesh`` (all axes).
-
-    Device k decodes rows [k·n/D, (k+1)·n/D). Falls back to the
-    single-device fused entry (which has its own XLA fallback) when the
-    mesh has one device or the per-device block would violate the kernel
-    geometry."""
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    D = _mesh_devices(mesh) if mesh is not None else 1
-
-    def single():
-        return decode_image_fused_v2(
-            fp, mlp, mip_level, image_size=image_size,
-            mip_to_level=mip_to_level, pe_channels=pe_channels,
-            use_tri_pe=use_tri_pe, g1_quirk=g1_quirk, dtype=dtype,
-            out_dtype=out_dtype, gelu=gelu,
-        )
-
-    if D <= 1:
-        return single()
-    prep = _prepare_2d(
-        fp, mlp, mip_level, image_size=image_size,
-        mip_to_level=mip_to_level, pe_channels=pe_channels,
-        use_tri_pe=use_tri_pe, dtype=dtype, block_rows=None,
-        block_cols=None,
-    )
-    if prep is None:
-        return single()
-    pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, geom = prep
-    n, R, C, f, f1 = geom["n"], geom["R"], geom["C"], geom["f"], geom["f1"]
-    nc = geom.get("nc", n)  # output columns (rectangular geometry)
-    if n % D or (n // D) % R or (n // D) % f1 or (n // D) % f:
-        return single()
-    nr = n // D  # output rows per device
-    hidden = pc.shape[-1]
-
-    # per-device operand stacks (leading axis = device):
-    # P rows and row-PE split disjointly; C1 node-row windows overlap by
-    # exactly one halo row, duplicated here (D static slices of a
-    # node-resolution plane — cheap) instead of exchanged on ICI.
-    pcs = pc.reshape(D, nr // f, nc, hidden)
-    rows_loc = nr // f1 + 1
-    c1s = jnp.stack(
-        [
-            jax.lax.slice_in_dim(c1v, k * (nr // f1), k * (nr // f1) + rows_loc,
-                                 axis=0)
-            for k in range(D)
-        ]
-    )
-    peus = pe_u.reshape(D, nr, hidden)
-
+def decode_sharded(fp, mlp, mip_level: int, mesh, *, image_size: int,
+                   ndim: int = 2, n=None, **kw):
+    """Decode [n.., 3] with the outermost axis sharded over every axis of
+    ``mesh``; ``kw`` as for :func:`nic.kernels.decode.decode`."""
+    if n is None:
+        n = image_size // (2**mip_level)
+    ns = (n,) * ndim if isinstance(n, int) else tuple(n)
+    if not shardable(ns, mesh):
+        raise ValueError(f"{ns[0]} rows do not split over "
+                         f"{math.prod(mesh.devices.shape)} devices")
+    rows = ns[0] // math.prod(mesh.devices.shape)
     axes = tuple(mesh.axis_names)
-    blk = P(axes)  # leading dim over ALL mesh axes
 
-    scale_ops = () if plane_scale is None else (plane_scale,)
+    def local(fp, mlp):
+        k = jax.lax.axis_index(axes)
+        origin = (k * rows,) + (0,) * (ndim - 1)
+        return decode(fp, mlp, mip_level, image_size=image_size, ndim=ndim,
+                      n=(rows,) + ns[1:], origin=origin, full_n=ns, **kw)
 
-    def local(pc_l, c1_l, pe_l, w2_, b2_, w3_, b3_, *s_):
-        out = _call(
-            pc_l[0], c1_l[0], pe_l[0], w2_, b2_, w3_, b3_,
-            *s_,  # i16 plane scale, replicated
-            n=nr, nc=nc, out_dtype=out_dtype, gelu=gelu,
-            R=geom["R"], C=geom["C"], f=geom["f"], f1=geom["f1"],
-            packed=geom["packed"],
-        )
-        return out[None]
-
-    out = shard_map_nocheck(
-        local, mesh,
-        in_specs=(blk, blk, blk, P(), P(), P(), P())
-        + ((P(),) if scale_ops else ()),
-        out_specs=blk,
-    )(pcs, c1s, peus, w2, b2, w3, b3, *scale_ops)
-    return out.reshape(n, nc, 3)
-
-
-def decode_volume_fused_sharded(
-    fp, mlp, mip_level: int, mesh, *, image_size: int, mip_to_level: dict,
-    pe_channels: int, use_tri_pe: bool = True, sparse_g0: bool = False,
-    g1_quirk: bool = True, dtype=None, out_dtype=jnp.float32,
-    gelu: str = "exact",
-):
-    """3D fused decode with frames sharded over ``mesh`` (all axes).
-
-    Device k decodes frames [k·n/D, (k+1)·n/D) — frame interpolation
-    happens in the replicated host/XLA stage, so the per-frame planes
-    split disjointly (no halo at all)."""
-    from nic.kernels.decode_fused_3d import decode_volume_fused
-
-    D = _mesh_devices(mesh) if mesh is not None else 1
-
-    def single():
-        return decode_volume_fused(
-            fp, mlp, mip_level, image_size=image_size,
-            mip_to_level=mip_to_level, pe_channels=pe_channels,
-            use_tri_pe=use_tri_pe, sparse_g0=sparse_g0, g1_quirk=g1_quirk,
-            dtype=dtype, out_dtype=out_dtype, gelu=gelu,
-        )
-
-    if D <= 1:
-        return single()
-    prep = _prepare_3d(
-        fp, mlp, mip_level, image_size=image_size,
-        mip_to_level=mip_to_level, pe_channels=pe_channels,
-        use_tri_pe=use_tri_pe, sparse_g0=sparse_g0, dtype=dtype,
-        block_rows=None, block_cols=None,
-    )
-    if prep is None:
-        return single()
-    pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, geom = prep
-    n = geom["n"]
-    if n % D:
-        return single()
-    nt = n // D  # frames per device
-
-    pcs = pc.reshape((D, nt) + pc.shape[1:])
-    c1s = c1v.reshape((D, nt) + c1v.shape[1:])
-
-    axes = tuple(mesh.axis_names)
-    blk = P(axes)
-    scale_ops = () if plane_scale is None else (plane_scale,)
-
-    def local(pc_l, c1_l, pe_l, w2_, b2_, w3_, b3_, *s_):
-        out = _call3(
-            pc_l[0], c1_l[0], pe_l, w2_, b2_, w3_, b3_,
-            *s_,  # i16 plane scale, replicated
-            n=n, n_t=nt, out_dtype=out_dtype, gelu=gelu,
-            R=geom["R"], C=geom["C"], f=geom["f"], f1=geom["f1"],
-            packed=geom["packed"],
-        )
-        return out[None]
-
-    out = shard_map_nocheck(
-        local, mesh,
-        in_specs=(blk, blk, P(), P(), P(), P(), P())
-        + ((P(),) if scale_ops else ()),
-        out_specs=blk,
-    )(pcs, c1s, pe_u, w2, b2, w3, b3, *scale_ops)
-    return out.reshape(n, n, n, 3)
+    return shard_map_nocheck(local, mesh, in_specs=(P(), P()),
+                             out_specs=P(axes))(fp, mlp)

@@ -13,7 +13,7 @@ Function-class parity with the reference's inline ``ColorEncoder`` /
 
 Implemented in flax.linen with **explicit torch-style padding** so latent
 shapes match exactly (SAME padding would disagree on the pixel_comp 257→129
-lattice). NHWC/NDHWC layouts (TPU-native); entry points convert from the
+lattice). NHWC/NDHWC layouts; entry points convert from the
 host CHW arrays once per run.
 """
 
@@ -113,7 +113,7 @@ class ConvDecoder3D(nn.Module):
 class MatmulEncoder2D(nn.Module):
     """ConvEncoder2D expressed via im2col matmuls (nic.models.matmul_conv) —
     the conv-primitive-free path for backends whose conv lowering degrades
-    training (NOTES_r1.md)."""
+    training."""
 
     latent_channels: int = 8
     hidden_channels: int = 16
@@ -178,9 +178,8 @@ class MatmulPixelEncoder(nn.Module):
     """PixelLatentEncoder via im2col matmuls (first conv pads 2 → the
     (S/4 + 1)² corner lattice, pixel_comp.py:39). The odd 257/129
     lattice is safe here: ``_im2col`` uses the polyphase decomposition,
-    whose contiguous slices avoid the TPU-worker strided-slice fault
-    that the plain slicing form hit on pad-2 geometries (round-2
-    bisect, see matmul_conv._im2col)."""
+    whose contiguous slices avoid long strided slices (see
+    matmul_conv._im2col)."""
 
     latent_channels: int = 8
     hidden_channels: int = 16

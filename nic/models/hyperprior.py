@@ -4,7 +4,7 @@ A north-star EXTENSION beyond the reference
 (21K1113/Neural_Image_Compression_V2 has no entropy model anywhere —
 SURVEY.md §0 discrepancy note): the reference's rate is fixed-length
 ``num_bits`` quantization; this module adds the learned-rate path from
-BASELINE.json's north star — a Ballé-style scale hyperprior:
+the original north star — a Ballé-style scale hyperprior:
 
     y = g_a(x)            analysis transform (strided convs)
     z = h_a(|y|)          hyper-analysis
@@ -21,7 +21,7 @@ minimizes R + λ·255²·D. Rates are exact code lengths under the priors
 tests/test_hyperprior.py and its measured size matches the estimate.
 
 All transforms are flax.linen with NHWC layouts; GELU in place of GDN
-(GDN's per-channel normalization is a poor fit for the MXU; GELU convs
+(GDN's per-channel normalization is a poor fit for matrix units; GELU convs
 reach similar RD in practice at these model sizes).
 """
 
@@ -59,9 +59,10 @@ def logistic_bits(z, mu, log_s):
     return -jnp.log2(jnp.maximum(upper - lower, 1e-12))
 
 
-# transforms use im2col matmul convs (nic.models.matmul_conv): on this
-# image's TPU backend the conv primitive degrades TRAINING convergence
-# badly (root-caused in NOTES_r1.md / BASELINE.md). Downsampling convs are
+# transforms use im2col matmul convs (nic.models.matmul_conv), which
+# trained to a better loss than the conv primitive on the accelerator the
+# family was first built on (ROADMAP: whether lax.conv now matches is
+# open). Downsampling convs are
 # k5 s2 pad2 (symmetric-pad twin of SAME); upsampling uses k4 s2 —
 # exactly 2× and checkerboard-free.
 

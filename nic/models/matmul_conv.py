@@ -1,12 +1,12 @@
-"""Conv / transposed-conv implemented as explicit im2col + MXU matmuls.
+"""Conv / transposed-conv implemented as explicit im2col + matmuls.
 
-Motivation (see NOTES_r1.md): on this image's experimental TPU backend the
-conv-AE converges ~8× worse in loss than the SAME code on CPU, across
-seeds, learning rates, optimizers, and matmul-precision settings — the
-conv/conv-grad lowering is the remaining suspect. These modules express
-the identical math through pad/slice/concat + ``jnp.dot`` only (the MXU
-path with well-defined ``preferred_element_type=float32`` accumulation),
-avoiding the convolution primitive entirely.
+Motivation: on the accelerator this family was first built on, the
+conv-AE trained to a far worse loss through the convolution primitive
+than the same code on the CPU. These modules express the identical math
+through pad/slice/concat + ``jnp.dot`` only (with well-defined
+``preferred_element_type=float32`` accumulation), avoiding the
+convolution primitive entirely. Whether ``lax.conv`` trains as well on
+the GPU is an open ROADMAP item.
 
 - :class:`MatmulConv`: k×k, stride s, torch-style symmetric padding —
   patches are gathered as k² strided slices and contracted in one dot.
@@ -35,11 +35,8 @@ def _im2col(x, k: int, stride: int, pad_lo: int, pad_hi: int):
     stride == 1 gathers kⁿ contiguous slices. stride > 1 goes through a
     polyphase (space-to-depth) decomposition: the padded input is
     reshaped into sⁿ phase planes and every kernel tap becomes a
-    CONTIGUOUS slice of one plane — no strided slices at all. Strided
-    slices whose extent exceeds ~512 rows fault this image's TPU worker
-    (round-2 bisect: pad=1 514→256 fine, pad=2 517→258 crashes the
-    worker in the plain-slicing forward); the polyphase form is immune
-    and is also the layout XLA tiles best. Bit-exact vs the slicing
+    CONTIGUOUS slice of one plane — no strided slices at all, the layout
+    XLA tiles best. Bit-exact vs the slicing
     form (pure data movement, same concat order)."""
     ndim = x.ndim - 2
     s = stride
@@ -159,9 +156,8 @@ def _conv_transpose_polyphase(x, w, k, s, p, op, features,
     stride-1 conv AT INPUT RESOLUTION over the ≤⌈k/s⌉^n kernel taps that
     hit real inputs; phases are then interleaved (depth-to-space). Bitwise
     the same function as zero-insertion + stride-1 conv, with none of the
-    multiply-by-zero work or upsampled-resolution im2col traffic — the
-    TPU-shaped lowering (the MXU sees s^n small dense dots instead of one
-    sparse large one)."""
+    multiply-by-zero work or upsampled-resolution im2col traffic (s^n
+    small dense dots instead of one sparse large one)."""
     c_in = x.shape[-1]
     ndim = x.ndim - 2
     ins = [x.shape[1 + d] for d in range(ndim)]

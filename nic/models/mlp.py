@@ -44,8 +44,8 @@ def apply_mlp(params: dict, x, matmul_dtype=None):
     """x: [N, F] → [N, 3] in (0, 1).
 
     ``matmul_dtype`` (e.g. bf16) casts ONLY the dot inputs, accumulating
-    in fp32 — the surgical mixed-precision mode: the MXU runs the matmuls
-    at bf16 rate while biases/GELU/sigmoid (and everything upstream: grid
+    in fp32 — the surgical mixed-precision mode: the matmuls run at bf16
+    rate while biases/GELU/sigmoid (and everything upstream: grid
     gather/interp, QAT noise) stay fp32. With ``None`` the dtype follows
     the inputs unchanged."""
     if matmul_dtype is None:

@@ -1,4 +1,4 @@
-// Native runtime helpers for the nic framework (host-side, off the TPU
+// Native runtime helpers for the nic framework (host-side, off the device
 // compute path): sub-byte bit-packing for compressed artifacts and a fast
 // LUT→CSV exporter.
 //

@@ -2,12 +2,12 @@
 
 The reference's tracing is manual ``time.perf_counter`` spans printed as
 学習時間/圧縮時間/展開時間 (image_comp.py:106-153) plus a per-step Time
-scalar. TPU-native equivalents here:
+scalar. JAX equivalents here:
 
 - :class:`SpanTimer` — named wall-clock spans accumulated into a report
   (keeps the reference's habit, queryable instead of print-only);
 - :func:`profile_trace` — context manager around ``jax.profiler`` writing a
-  TensorBoard-loadable trace (the real tool for XLA/TPU timelines);
+  TensorBoard-loadable trace (the device timeline of XLA and kernels);
 - :func:`annotate` — ``jax.profiler.TraceAnnotation`` passthrough so host
   code shows up in the device timeline.
 """

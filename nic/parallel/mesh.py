@@ -1,8 +1,8 @@
 """Device-mesh parallelism helpers.
 
 The reference is strictly single-device (SURVEY.md §2: no torch.distributed
-/ NCCL / MPI anywhere); this module is the *new* first-class component the
-TPU design adds. The natural batch axes of these workloads map onto a 2-D
+/ NCCL / MPI anywhere); this module is a *new* component. The natural batch
+axes of these workloads map onto a 2-D
 logical mesh:
 
 - ``data``  — crops (training, image_compression.py:233's NUM_CROPS axis),
@@ -12,8 +12,9 @@ logical mesh:
 
 Grids + MLP params are tiny (≤ a few MB) and stay replicated; activations
 are sharded with ``with_sharding_constraint`` and the SPMD partitioner
-inserts the gradient psum over ICI. No halo exchange is needed: grid
-gathers are local reads of the replicated pyramid.
+inserts the gradient psum. No halo exchange is needed: grid gathers are
+local reads of the replicated pyramid. Every device reaches every other at
+the same rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -64,20 +65,6 @@ def replicate(tree, mesh: Mesh | None):
 
 
 def shard_map_nocheck(f, mesh: Mesh, in_specs, out_specs):
-    """shard_map with replication checking off, across the jax 0.8 API
-    move (jax.shard_map/check_vma replaced
-    jax.experimental.shard_map/check_rep)."""
-    try:
-        from jax import shard_map as _sm
-
-        try:
-            return _sm(f, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
-        except TypeError:  # pragma: no cover — older signature
-            return _sm(f, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs)
-    except ImportError:  # pragma: no cover — jax < 0.8
-        from jax.experimental.shard_map import shard_map as _sm
-
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_rep=False)
+    """``jax.shard_map`` with replication checking off."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)

@@ -4,7 +4,7 @@ movie_3d workload family.
 Re-architects the reference's whole-asset batch=1 loop
 (``Projects/image_comp.py:82-158``, ``movie_2d_comp.py:69-123``,
 ``movie_3d_comp.py:75-202`` of 21K1113/Neural_Image_Compression_V2) as one
-jitted step on TPU:
+jitted step:
 
 - encoder fwd → QAT (noise for the first 95% of steps, hard quantize
   after — with the reference's zero-gradient-through-floor semantics, or
@@ -58,9 +58,9 @@ class ConvAETrainer:
         seed: int = 0,
         qat_ste: bool = False,
         dtype=jnp.float32,
-        conv_impl: str = "matmul",  # im2col matmuls by default: this image's
-        # TPU conv lowering degrades training ~8× in loss (NOTES_r1.md);
-        # "xla" selects the plain lax-conv modules
+        conv_impl: str = "matmul",  # im2col matmuls by default
+        # (nic.models.matmul_conv); "xla" selects the plain lax-conv
+        # modules
         mesh=None,  # ('data', ...) mesh: shard the sheet-row/time axis
         # (movie frames) data-parallel; params replicated, grads psum'd
     ):

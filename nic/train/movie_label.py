@@ -8,7 +8,7 @@ embedding injected into the decoder so one decoder serves all frames —
 sample10.py:112-127 shapes the embedding as one extra (H/4)² channel plane
 concatenated to the latent.
 
-TPU redesign: frames are a batch axis (vmapped conv encode/decode — the
+JAX redesign: frames are a batch axis (vmapped conv encode/decode — the
 natural data-parallel axis), the embedding is a [T, h, w, 1] learnable
 plane, and the whole train step (all frames per step) is one jitted
 program. The latent gets the usual QAT treatment; embeddings stay float

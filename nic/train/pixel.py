@@ -7,7 +7,7 @@ single-row MLP launches (``Projects/pixel_comp.py:89-168``,
 21K1113/Neural_Image_Compression_V2). SURVEY.md §3.2 marks that loop as
 the kernel-fusion target.
 
-TPU redesign:
+JAX redesign:
 - training samples a whole BATCH of random pixels per step (the
   one-pixel-per-step reference loop is pure host latency; batching is the
   same estimator with lower variance) and runs as one jitted step;
@@ -70,11 +70,9 @@ class PixelTrainer:
         seed: int = 0,
         qat_ste: bool = False,
         dtype=jnp.float32,
-        conv_impl: str = "matmul",  # im2col matmuls by default — the
-        # convergence-safe conv lowering (see BASELINE.md). The former
-        # pad-2-geometry TPU-worker fault is fixed: _im2col's stride>1
-        # path is now a polyphase decomposition with contiguous slices
-        # only (matmul_conv._im2col).
+        conv_impl: str = "matmul",  # im2col matmuls by default
+        # (nic.models.matmul_conv); _im2col's stride>1 path is a
+        # polyphase decomposition with contiguous slices only
     ):
         self.num_bits = num_bits
         self.num_epochs = num_epochs

@@ -17,7 +17,7 @@ natural batch axis data-parallel over the device mesh:
 
 Training uses the same specs: the trainers place the asset and constrain
 the latent with :func:`movie_spec`, the SPMD partitioner psums the
-replicated encoder/decoder grads over ICI.
+replicated encoder/decoder grads.
 """
 
 from __future__ import annotations

@@ -3,9 +3,8 @@
 Replaces the reference's Windows ``仮想環境起動 python実行 改.bat`` launcher
 (21K1113/Neural_Image_Compression_V2 repo root), which swept
 FP_BITS ∈ {2,4,8} × COMPRESSION_METHOD ∈ {3,4} over its LUT datasets at
-NUM_EPOCHS=320000, CROP_MIP_LEVEL=5. Runs sequentially in-process (one TPU
-client at a time — see README operational note) and records each run's
-PSNR/bpp to a JSON summary.
+NUM_EPOCHS=320000, CROP_MIP_LEVEL=5. Runs sequentially in one process (one
+JAX process per GPU) and records each run's PSNR/bpp to a JSON summary.
 
 Usage:
   python scripts/sweep.py --image_path data/misty_64_64.avi \

@@ -61,10 +61,14 @@ def test_misty_reads_without_cv2():
 
 
 def test_compressed_avi_falls_back_to_cv2(tmp_path):
-    from nic.data.assets import write_timelaps
+    import cv2
 
     movie = (np.random.default_rng(1).uniform(0, 255, (4, 16, 16, 3))).astype(np.uint8)
     p = str(tmp_path / "mp4v.avi")
-    write_timelaps(movie, p)  # mp4v-coded → raw reader returns None
+    out = cv2.VideoWriter(p, cv2.VideoWriter_fourcc(*"mp4v"), 30, (16, 16))
+    for frame in movie:
+        out.write(frame)
+    out.release()
+    # mp4v-coded → the raw reader returns None and read_clip uses cv2
     assert _read_avi_raw_dib(p) is None
     assert read_clip(p).shape == (4, 16, 16, 3)

@@ -1,4 +1,4 @@
-"""bf16-native training (MLP_NUM_DTYPE=16 → bfloat16): the TPU-native
+"""bf16 training (MLP_NUM_DTYPE=16 → bfloat16): the
 replacement for the reference's broken half-precision path
 (readme.md:9 "半精度で学習ができていないこと"). Must converge on a toy
 overfit where the reference's fp16 did not train at all."""

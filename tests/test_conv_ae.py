@@ -194,8 +194,7 @@ def test_conv_transpose_polyphase_matches_zero_insertion():
 
 def test_polyphase_im2col_matches_strided_slicing():
     """stride>1 _im2col is a polyphase (space-to-depth) decomposition —
-    contiguous slices only, immune to the TPU-worker strided-slice fault
-    on pad-2 geometries (round-2 bisect). Must be bit-exact vs the naive
+    contiguous slices only. Must be bit-exact vs the naive
     strided-slicing form across 2D/3D geometries incl. odd sizes."""
     import jax.numpy as jnp
 

@@ -97,9 +97,9 @@ def test_decode_cli_method3_ignores_raw_tri_pe_flag(tmp_path):
 
 
 def test_decode_cli_pallas_handles_sparse_g0(tmp_path):
-    """Round 3: a method-4 (sparse-G0) 3D artifact decodes through the
-    fused spatiotemporal kernel (round 2 refused it with SystemExit) and
-    matches the XLA fast path."""
+    """A method-4 (sparse-G0) 3D artifact decodes through the Triton
+    kernel (the sparse corner set only changes the XLA fold) and matches
+    the XLA fast path."""
     import numpy as np
 
     from nic.cli.decode import run as decode_run
@@ -111,11 +111,12 @@ def test_decode_cli_pallas_handles_sparse_g0(tmp_path):
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
-def test_decode_cli_notes_ignored_dtype_and_fallback(tmp_path, capsys):
-    """Round-5 never-drop-dtype-silently notes: (a) --dtype on a
-    non-pallas backend says the dtype is ignored; (b) a thumbnail mip
-    outside the kernel gate on --backend pallas says the folded-XLA
-    fp32 fallback is in use."""
+def test_decode_cli_rejects_kernel_modes_elsewhere(tmp_path, capsys):
+    """--dtype/--gelu select kernel modes: asking for them on another
+    backend is an error, not a silently ignored flag; on the kernel a
+    thumbnail mip (e = 2) decodes like the fast path, with no fallback."""
+    import pytest
+
     from nic.cli.decode import run as decode_run
 
     cfg = CompressionConfig(
@@ -136,13 +137,16 @@ def test_decode_cli_notes_ignored_dtype_and_fallback(tmp_path, capsys):
         },
     })
 
-    decode_run([art, "--backend", "fast", "--dtype", "i16"])
-    out = capsys.readouterr().out
-    assert "applies to the pallas backend" in out
+    with pytest.raises(SystemExit):
+        decode_run([art, "--backend", "fast", "--dtype", "bf16"])
+    assert "apply to the pallas backend" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        decode_run([art, "--backend", "xla", "--gelu", "tanh"])
 
-    # mip 4 on the 32² no-mip map is e=2: outside the kernel gate
-    decode_run([art, "--backend", "pallas", "--dtype", "i16",
-                "--mip", "4"])
+    # mip 4 on the 32² no-mip map is e = 2
+    got = decode_run([art, "--backend", "pallas", "--mip", "4"])
+    want = decode_run([art, "--backend", "fast", "--mip", "4"])
+    assert got.shape == (2, 2, 3)
+    np.testing.assert_allclose(got, want, atol=2e-5)
     out = capsys.readouterr().out
-    assert "outside the fused kernel" in out
-    assert "--dtype i16 does not apply" in out
+    assert "backend=pallas" in out and "backend=fast" in out

@@ -1,187 +1,246 @@
-"""Fused Pallas decode kernel vs the XLA reference path (interpret mode on
-CPU; the real-TPU numbers come from bench.py)."""
+"""The Triton decode kernel (nic/kernels/decode_triton.py) and the decode
+dispatch (nic/kernels/decode.py) against the folded XLA decode and the
+unfused float32 reference. On the CPU the kernel runs in the Pallas
+interpreter (tests/conftest.py); its timings come from bench.py and
+chip_smoke.py on the GPU."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
+from nic.grids.fastdecode import fast_decode
 from nic.grids.pyramid import create_pyramid, pyramid_mip_levels
-from nic.grids.sample import decoder_input
-from nic.kernels.decode_fused import decode_image_fused
-from nic.models.mlp import apply_mlp, init_mlp
+from nic.kernels import decode_triton
+from nic.kernels.decode import decode, resolve_backend
+from nic.kernels.decode_triton import decode_fused
+from nic.models.mlp import init_mlp
 
 
-def _xla_decode(fp, mlp, mip, image_size, mip_to_level, pe_channels, use_tri_pe):
-    fl = mip_to_level[mip]
-    step = 2.0 ** (mip - (fl + 1) * 2)
-    n = image_size // (2**mip)
-    x = decoder_input(
-        fp, fl, jnp.zeros((2,), jnp.int32), step, n,
-        pe_channels=pe_channels, mip_level=mip, ndim=2, use_tri_pe=use_tri_pe,
-    )
-    return apply_mlp(mlp, x).reshape(n, n, 3)
+def _setup(ndim=2, size=64, c=4, pe=4, hidden=16, sparse=False, seed=3,
+           no_mip=False, hw=None):
+    """Seeded pyramid + MLP; ``hw`` gives a rectangular 2D geometry."""
+    k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
+    if hw is not None:
+        base = tuple(s // 4 for s in hw)
+        m2l = pyramid_mip_levels(hw[0], min(base), no_mip=no_mip)
+    else:
+        base = size // 4
+        m2l = pyramid_mip_levels(size, base, no_mip=no_mip)
+    fp, _ = create_pyramid(k1, base, c, 8, ndim=ndim, no_mip=no_mip)
+    corners = 4 if sparse else 2**ndim
+    mlp = init_mlp(k2, c * (corners + 1) + pe * ndim + 1, hidden, 3)
+    return fp, mlp, m2l
+
+
+def _u8(a):
+    return np.clip(np.asarray(a) * 255 + 0.5, 0, 255).astype(np.int32)
 
 
 @pytest.mark.parametrize("use_tri_pe", [True, False])
-@pytest.mark.parametrize("mip", [0, 1, 2, 3, 4])
-def test_fused_matches_xla_across_mips(mip, use_tri_pe):
-    """Covers e = mip - (fl+1)*2 ∈ {-2, -1, 0, 1 (quirk), 0 (fl=1)}."""
-    image_size = 64
-    base = image_size // 4  # 16 → 2 pyramid levels
-    key = jax.random.PRNGKey(0)
-    k1, k2 = jax.random.split(key)
-    fp, levels = create_pyramid(k1, base, channels=4, num_bits=8, ndim=2)
-    assert levels == 2
-    mip_to_level = pyramid_mip_levels(image_size, base)
-    pe = 4
-    mlp = init_mlp(k2, 4 * 5 + pe * 2 + 1, 16, 3)
-
-    want = np.asarray(
-        _xla_decode(fp, mlp, mip, image_size, mip_to_level, pe, use_tri_pe)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused(
-                fp, mlp, mip, image_size=image_size, mip_to_level=mip_to_level,
-                pe_channels=pe, use_tri_pe=use_tri_pe,
-            )
-        )
+@pytest.mark.parametrize("mip", [0, 1, 2, 3, 4, 5, 6])
+def test_kernel_matches_fastdecode_2d_mips(mip, use_tri_pe):
+    """Every mip of the protocol map, thumbnails included: e ranges over
+    {-2, -1, 0, 1 (the step==2 raw-sum quirk), 2+} and both levels."""
+    fp, mlp, m2l = _setup()
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=4,
+              use_tri_pe=use_tri_pe)
+    want = np.asarray(fast_decode(fp, mlp, mip, **kw))
+    got = np.asarray(decode_fused(fp, mlp, mip, **kw))
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=2e-5)
+    np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-def test_fused_multiblock_grid():
-    """decode_size larger than one row-block → multiple kernel programs."""
-    image_size = 128
-    base = 32
-    key = jax.random.PRNGKey(1)
-    k1, k2 = jax.random.split(key)
-    fp, _ = create_pyramid(k1, base, channels=4, num_bits=8, ndim=2, no_mip=True)
-    mip_to_level = pyramid_mip_levels(image_size, base, no_mip=True)
-    pe = 6
-    mlp = init_mlp(k2, 4 * 5 + pe * 2 + 1, 16, 3)
-    want = np.asarray(_xla_decode(fp, mlp, 0, image_size, mip_to_level, pe, True))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused(
-                fp, mlp, 0, image_size=image_size, mip_to_level=mip_to_level,
-                pe_channels=pe, use_tri_pe=True,
-            )
-        )
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
-@pytest.mark.parametrize("use_tri_pe", [True, False])
+@pytest.mark.parametrize("sparse_g0", [False, True])
 @pytest.mark.parametrize("mip", [0, 1, 2, 3, 4])
-def test_fused_v2_matches_fastdecode(mip, use_tri_pe):
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size, base, c, pe = 64, 16, 4, 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2)
-    m2l = pyramid_mip_levels(image_size, base)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=use_tri_pe, ndim=2)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=use_tri_pe,
-            )
-        )
-    np.testing.assert_allclose(got, want, atol=2e-5)
+def test_kernel_matches_fastdecode_3d(mip, sparse_g0):
+    """Methods 3 (dense 8-corner G0, tri-PE) and 4 (sparse even-parity
+    G0, sinusoidal PE) across mips."""
+    fp, mlp, m2l = _setup(ndim=3, size=32, sparse=sparse_g0, seed=11)
+    kw = dict(image_size=32, mip_to_level=m2l, pe_channels=4,
+              use_tri_pe=not sparse_g0, ndim=3, sparse_g0=sparse_g0)
+    want = np.asarray(fast_decode(fp, mlp, mip, **kw))
+    got = np.asarray(decode_fused(fp, mlp, mip, **kw))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-def test_fused_v2_multiblock():
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size, base = 128, 32
-    k1, k2 = jax.random.split(jax.random.PRNGKey(4))
-    fp, _ = create_pyramid(k1, base, 4, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, 4 * 5 + 6 * 2 + 1, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=6, ndim=2)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=6,
-            )
-        )
-    np.testing.assert_allclose(got, want, atol=2e-5)
+@pytest.mark.parametrize("hw", [(64, 96), (96, 64), (32, 128)])
+@pytest.mark.parametrize("mip", [0, 1, 2])
+def test_kernel_rectangular(hw, mip):
+    fp, mlp, m2l = _setup(hw=hw, no_mip=True, seed=11)
+    ns = tuple(s >> mip for s in hw)
+    kw = dict(image_size=hw[0], mip_to_level=m2l, pe_channels=4, n=ns)
+    want = np.asarray(fast_decode(fp, mlp, mip, **kw))
+    got = np.asarray(decode_fused(fp, mlp, mip, **kw))
+    assert got.shape == ns + (3,)
+    np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-def test_fused_v3_matches_fast_decode():
-    """v3 (XLA first-layer accumulator + Pallas MLP tail) must equal the
-    folded XLA path exactly."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v3 import decode_image_fused_v3
-
-    image_size = 64
-    base = image_size // 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
-    fp, _ = create_pyramid(k1, base, channels=4, num_bits=8, ndim=2)
-    mip_to_level = pyramid_mip_levels(image_size, base)
-    pe = 4
-    mlp = init_mlp(k2, 4 * 5 + pe * 2 + 1, 16, 3)
-    ref = np.asarray(fast_decode(
-        fp, mlp, 0, image_size=image_size, mip_to_level=mip_to_level,
-        pe_channels=pe, use_tri_pe=True, ndim=2,
-    ))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(decode_image_fused_v3(
-            fp, mlp, 0, image_size=image_size, mip_to_level=mip_to_level,
-            pe_channels=pe, use_tri_pe=True,
-        ))
-    np.testing.assert_allclose(got, ref, atol=1e-5)
+@pytest.mark.parametrize("block,num_warps", [(16, 1), (32, 4), (128, 8),
+                                             (1024, 8)])
+def test_kernel_block_sizes(block, num_warps):
+    """Many programs (block < pixels), one program, and a last block
+    whose spare lanes write only the output padding."""
+    fp, mlp, m2l = _setup(size=48, no_mip=True)
+    kw = dict(image_size=48, mip_to_level=m2l, pe_channels=4, n=(48, 40))
+    want = np.asarray(fast_decode(fp, mlp, 0, **kw))
+    got = np.asarray(decode_fused(fp, mlp, 0, block=block,
+                                  num_warps=num_warps, **kw))
+    np.testing.assert_allclose(got, want, atol=2e-6)
 
 
-@pytest.mark.parametrize("fast_gelu,tol", [
-    ("tanh", 1e-3), ("poly", 1e-3),
-    # erf routed through tanh: |Δgelu| ≤ 1.4e-6, so the decode must sit
-    # in the exact-erf class (tolerance dominated by the fused pipeline's
-    # own f32 rounding, not the GELU)
-    ("tanherf", 2e-5),
+@pytest.mark.parametrize("hidden", [8, 16, 24, 64])
+def test_kernel_pads_hidden_width(hidden):
+    """Widths that are not a power of two ≥ 16 are zero-padded; the pad
+    channels stay 0 through both GELUs and contribute nothing."""
+    fp, mlp, m2l = _setup(hidden=hidden, c=12, pe=6, no_mip=True, seed=7)
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=6)
+    want = np.asarray(fast_decode(fp, mlp, 0, **kw))
+    got = np.asarray(decode_fused(fp, mlp, 0, **kw))
+    np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_kernel_matches_unfused_reference(ndim):
+    """Against the plain float32 reference (decoder_input + apply_mlp at
+    "highest" precision): within one u8 step, float rounding only."""
+    size = 64 if ndim == 2 else 32
+    fp, mlp, m2l = _setup(ndim=ndim, size=size, c=12, pe=6, hidden=64,
+                          no_mip=True)
+    kw = dict(image_size=size, mip_to_level=m2l, pe_channels=6, ndim=ndim)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(decode(fp, mlp, 0, backend="xla", **kw))
+    got = np.asarray(decode(fp, mlp, 0, backend="pallas", **kw))
+    assert np.abs(got - ref).max() < 1e-5
+    assert np.abs(_u8(got) - _u8(ref)).max() <= 1
+
+
+@pytest.mark.parametrize("dtype,gelu,tol", [
+    ("fp32", "tanh", 2e-3),   # |Δgelu| ≤ 4.7e-4 through the tail
+    ("bf16", "exact", 3e-3),  # 8-bit mantissa W2 operands
+    ("bf16", "tanh", 4e-3),
 ])
-def test_fused_v2_gelu_tanh_close(fast_gelu, tol):
-    """The fast GELU modes must match the exact-erf path to well under
-    one 8-bit quantization step (1/255 ≈ 4e-3); tanherf to exact-class
-    tolerance."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size, base, c, pe = 64, 16, 4, 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(5))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, ndim=2)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, gelu=fast_gelu,
-            )
-        )
+def test_kernel_fast_modes_close(dtype, gelu, tol):
+    """The fast modes stay under one u8 step (1/255 ≈ 3.9e-3) of the
+    exact decode at flagship widths."""
+    fp, mlp, m2l = _setup(c=12, pe=6, hidden=64, no_mip=True, seed=5)
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=6)
+    want = np.asarray(fast_decode(fp, mlp, 0, **kw))
+    got = np.asarray(decode_fused(fp, mlp, 0, dtype=dtype, gelu=gelu, **kw))
     assert np.abs(got - want).max() < tol
+    assert np.abs(_u8(got) - _u8(want)).max() <= 1
+
+
+@pytest.mark.parametrize("dtype,gelu", [("bf16", "exact"), ("fp32", "tanh")])
+def test_kernel_fast_modes_close_3d(dtype, gelu):
+    fp, mlp, m2l = _setup(ndim=3, size=32, c=12, pe=6, hidden=64,
+                          no_mip=True, seed=9)
+    kw = dict(image_size=32, mip_to_level=m2l, pe_channels=6, ndim=3)
+    want = np.asarray(fast_decode(fp, mlp, 0, **kw))
+    got = np.asarray(decode_fused(fp, mlp, 0, dtype=dtype, gelu=gelu, **kw))
+    assert np.abs(_u8(got) - _u8(want)).max() <= 1
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_kernel_tile_origin(traced):
+    """A tile at an origin equals that slice of the whole decode, with
+    static origins and with traced ones (which need ``full_n``)."""
+    fp, mlp, m2l = _setup(no_mip=True)
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=4)
+    full = np.asarray(decode_fused(fp, mlp, 0, **kw))
+    if traced:
+        tile = jax.jit(lambda o: decode_fused(
+            fp, mlp, 0, n=(16, 32), origin=(o[0], o[1]), full_n=(64, 64),
+            **kw))(jnp.asarray([16, 32], jnp.int32))
+    else:
+        tile = decode_fused(fp, mlp, 0, n=(16, 32), origin=(16, 32), **kw)
+    np.testing.assert_allclose(np.asarray(tile), full[16:32, 32:64],
+                               atol=1e-6)
+
+
+def test_kernel_g1_quirk_off():
+    """TF_G1_QUIRK=False applies the G1 weights at step == 2 too."""
+    fp, mlp, m2l = _setup()
+    mip = next(m for m in sorted(m2l) if m - (m2l[m] + 1) * 2 == 1)
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=4,
+              g1_quirk=False)
+    np.testing.assert_allclose(
+        np.asarray(decode_fused(fp, mlp, mip, **kw)),
+        np.asarray(fast_decode(fp, mlp, mip, **kw)), atol=2e-6)
+
+
+def test_kernel_rejects_unknown_dtype():
+    fp, mlp, m2l = _setup()
+    with pytest.raises(ValueError, match="dtype"):
+        decode_fused(fp, mlp, 0, image_size=64, mip_to_level=m2l,
+                     pe_channels=4, dtype="i16")
+
+
+def test_gelu_polynomials():
+    """The in-kernel exact GELU (erf polynomial) sits at float32 rounding
+    of jax's erf GELU; the tanh form within its known 4.7e-4."""
+    x = jnp.linspace(-9.0, 9.0, 20001, dtype=jnp.float32)
+    exact = jax.nn.gelu(x, approximate=False)
+    assert float(jnp.abs(decode_triton._gelu_exact(x) - exact).max()) < 2e-6
+    assert float(jnp.abs(decode_triton._gelu_tanh(x) - exact).max()) < 5e-4
+
+
+def test_dot_bf16x3_is_float32_class():
+    """The fp32 mode's three-pass bf16 product: ~2⁻¹⁶ relative error per
+    product, against ~2⁻⁸ for one bf16 pass."""
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    a = jax.random.normal(k1, (128, 64), jnp.float32)
+    b = jax.random.normal(k2, (64, 64), jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        want = a @ b
+    three = decode_triton._dot_bf16x3(a, b)
+    one = jnp.dot(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
+                  preferred_element_type=jnp.float32)
+    scale = float(jnp.abs(want).max())
+    assert float(jnp.abs(three - want).max()) / scale < 1e-4
+    assert float(jnp.abs(one - want).max()) / scale > 1e-3
+
+
+@pytest.mark.parametrize("ndim,dtype", [(2, "fp32"), (2, "bf16"),
+                                        (3, "fp32"), (3, "bf16")])
+def test_kernel_lowers_to_triton(ndim, dtype, monkeypatch):
+    """The kernel at flagship width lowers to Triton IR for CUDA without
+    a GPU (what the card's compiler then refuses shows only there)."""
+    monkeypatch.setattr(decode_triton, "INTERPRET", False)
+    size = 256 if ndim == 2 else 32
+    fp, mlp, m2l = _setup(ndim=ndim, size=size, c=12, pe=6, hidden=64,
+                          no_mip=True)
+    lowered = jax.jit(lambda fp, mlp: decode_fused(
+        fp, mlp, 0, image_size=size, mip_to_level=m2l, pe_channels=6,
+        ndim=ndim, dtype=dtype)).trace(fp, mlp).lower(
+            lowering_platforms=("cuda",))
+    assert "triton" in lowered.as_text()
+
+
+def test_resolve_backend_and_mode_checks():
+    assert resolve_backend("auto") == "pallas"
+    assert resolve_backend("fast") == "fast"
+    with pytest.raises(ValueError, match="decode backend"):
+        resolve_backend("mosaic")
+    fp, mlp, m2l = _setup()
+    with pytest.raises(ValueError, match="pallas backend only"):
+        decode(fp, mlp, 0, backend="fast", image_size=64, mip_to_level=m2l,
+               pe_channels=4, dtype="bf16")
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fast", "xla"])
+def test_dispatch_backends_agree(backend):
+    fp, mlp, m2l = _setup(no_mip=True)
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=4)
+    want = np.asarray(fast_decode(fp, mlp, 0, **kw))
+    got = np.asarray(decode(fp, mlp, 0, backend=backend, **kw))
+    np.testing.assert_allclose(got, want, atol=2e-6)
 
 
 def test_trainer_pallas_backend_matches_fast():
-    """NTCTrainer with DECODE_BACKEND=pallas must decode (bit-near) the
-    same image as the fast XLA backend."""
+    """NTCTrainer with DECODE_BACKEND=pallas must decode the same image
+    as the fast XLA backend, tiled (DIV_SIZE small) or not."""
     from nic.config import CompressionConfig
     from nic.train.ntc import NTCTrainer
 
@@ -196,485 +255,23 @@ def test_trainer_pallas_backend_matches_fast():
             decode_backend=backend,
         )
         trainer = NTCTrainer(cfg, [img])
-        with pltpu.force_tpu_interpret_mode():
-            outs[backend] = np.asarray(trainer.decode(0, div_size=10))
-    assert outs["fast"].shape == outs["pallas"].shape
-    np.testing.assert_allclose(outs["pallas"], outs["fast"], atol=2e-5)
+        outs[backend] = np.asarray(trainer.decode(0, div_size=10))
+        outs[backend + "_tiled"] = np.asarray(trainer.decode(0, div_size=-2))
+    for k in ("pallas", "pallas_tiled", "fast_tiled"):
+        assert outs[k].shape == (32, 32, 3)
+        np.testing.assert_allclose(outs[k], outs["fast"], atol=2e-5)
 
 
-def test_fused_v2_lane_packed_path():
-    """The lane-packed path (hidden=64 — the reference default and the
-    benchmark config) must be exercised and bit-near the XLA path; a
-    parity-axis swap in the packed untile would scramble columns."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import _call, decode_image_fused_v2
-
-    image_size, base, c, pe, hidden = 128, 32, 12, 6, 64
-    k1, k2 = jax.random.split(jax.random.PRNGKey(7))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, hidden, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, ndim=2)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe,
-            )
-        )
-        # multi-column-block grid forces the packed retile path too
-        got2 = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, block_cols=64,
-            )
-        )
-    # the eligibility gate must actually select the packed path here
-    import nic.kernels.decode_fused_v2 as v2mod
-    seen = {}
-    orig = v2mod._call
-
-    def spy(*a, **kw):
-        seen["packed"] = kw.get("packed")
-        return orig(*a, **kw)
-
-    v2mod._call = spy
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe,
-            )
-    finally:
-        v2mod._call = orig
-    assert seen["packed"] is True
-    np.testing.assert_allclose(got, want, atol=2e-5)
-    np.testing.assert_allclose(got2, want, atol=2e-5)
-
-
-@pytest.mark.parametrize("gelu", ["exact", "tanherf"])
-def test_fused_v2_surgical_mode(gelu):
-    """dtype="surgical" (round-5 directive #3): fp32 planes/windows with
-    bf16 only at the MXU dots. Must sit within one u8 step of the fp32
-    folded decode — far tighter than the all-bf16 plane pipeline's bound."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size, base, c, pe, hidden = 128, 32, 12, 6, 64
-    k1, k2 = jax.random.split(jax.random.PRNGKey(21))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, hidden, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, ndim=2)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, dtype="surgical", gelu=gelu,
-            )
-        )
-    u8 = lambda a: np.clip(a * 255 + 0.5, 0, 255).astype(np.int32)
-    assert np.abs(got - want).max() < 2e-3  # bf16-dot rounding only
-    assert np.abs(u8(got) - u8(want)).max() <= 1
-
-
-@pytest.mark.parametrize("gelu", ["exact", "tanh"])
-def test_fused_v2_i16_mode(gelu):
-    """dtype="i16" (round 5): int16 fixed-point plane STORAGE with one
-    shared dynamic scale (absolute step max|plane|/32767 — ~100× below
-    bf16's relative error at plane-max magnitude, which set the bf16
-    family's 7-LSB envelope) + bf16 MXU dots, at the same 2-byte plane
-    DMA as bf16. Mosaic rejects fp16 ("Unsupported type in mosaic
-    dialect: 'f16'" — measured r5 negative), so fixed point is the
-    2-byte accuracy tier. Must be surgical-class: within one u8 step of
-    the fp32 folded decode."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size, base, c, pe, hidden = 128, 32, 12, 6, 64
-    k1, k2 = jax.random.split(jax.random.PRNGKey(23))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, hidden, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, ndim=2)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, dtype="i16", gelu=gelu,
-            )
-        )
-    u8 = lambda a: np.clip(a * 255 + 0.5, 0, 255).astype(np.int32)
-    assert np.abs(got - want).max() < 3e-3  # i16 storage + bf16-dot
-    assert np.abs(u8(got) - u8(want)).max() <= 1
-
-
-@pytest.mark.parametrize("hw", [(64, 96), (96, 64)])
-@pytest.mark.parametrize("mip", [0, 1, 2])
-def test_fused_v2_rectangular_matches_fastdecode(hw, mip):
-    """NATIVE rectangular geometry (IMAGE_SIZE_W — the Kodak 768×512
-    target; the reference is square-only, var2.py:60) must ride the SAME
-    fused kernel: v2's tile grid is n_rows×n_cols. Parity vs the folded
-    XLA path with per-axis sample counts. Covers e ∈ {-2, -1, 0} and
-    both orientations."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    base = tuple(s // 4 for s in hw)
-    c, pe = 4, 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(11))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(hw[0], min(base), no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, 16, 3)
-    ns = tuple(s // (2**mip) for s in hw)
-    want = np.asarray(
-        fast_decode(fp, mlp, mip, image_size=hw[0], mip_to_level=m2l,
-                    pe_channels=pe, ndim=2, n=ns)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_v2(
-                fp, mlp, mip, image_size=hw, mip_to_level=m2l,
-                pe_channels=pe,
-            )
-        )
-    assert got.shape == ns + (3,)
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
-def test_fused_v2_rectangular_lane_packed():
-    """Rect + the packed (hidden=64, reference-default) layout: the
-    column count drives packing/retiling, the row count the tile grid —
-    an axis swap anywhere would scramble the image."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    hw, c, pe, hidden = (64, 96), 12, 6, 64
-    base = tuple(s // 4 for s in hw)
-    k1, k2 = jax.random.split(jax.random.PRNGKey(12))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(hw[0], min(base), no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, hidden, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=hw[0], mip_to_level=m2l,
-                    pe_channels=pe, ndim=2, n=hw)
-    )
-    import nic.kernels.decode_fused_v2 as v2mod
-
-    seen = []
-    orig = v2mod._call
-
-    def spy(*a, **kw):
-        seen.append(kw.get("packed"))
-        return orig(*a, **kw)
-
-    v2mod._call = spy
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(
-                decode_image_fused_v2(
-                    fp, mlp, 0, image_size=hw, mip_to_level=m2l,
-                    pe_channels=pe,
-                )
-            )
-            # multi-column-block grid forces the retile path too (48-wide
-            # blocks fail the packed sublane gate — unpacked rect kernel)
-            got2 = np.asarray(
-                decode_image_fused_v2(
-                    fp, mlp, 0, image_size=hw, mip_to_level=m2l,
-                    pe_channels=pe, block_cols=48,
-                )
-            )
-    finally:
-        v2mod._call = orig
-    # the default single-block geometry must select the packed layout
-    assert seen[0] is True
-    assert got.shape == hw + (3,)
-    np.testing.assert_allclose(got, want, atol=2e-5)
-    np.testing.assert_allclose(got2, want, atol=2e-5)
-
-
-@pytest.mark.parametrize("sparse_g0", [False, True])
-@pytest.mark.parametrize("mip", [0, 1, 2, 3, 4])
-def test_fused_3d_matches_fastdecode(mip, sparse_g0):
-    """3D fused kernel parity vs the folded XLA path across mips, for
-    method 3 (dense 8-corner G0, tri-PE) and method 4 (sparse even-parity
-    G0, sinusoidal PE). mip=3 is e=1 → internal fast_decode fallback."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_3d import decode_volume_fused
-
-    image_size, base, c, pe = 32, 8, 4, 4  # small: interpret mode is slow
-    k1, k2 = jax.random.split(jax.random.PRNGKey(11))
-    fp, levels = create_pyramid(k1, base, channels=c, num_bits=8, ndim=3)
-    assert levels == 2
-    m2l = pyramid_mip_levels(image_size, base)
-    n_corners = 4 if sparse_g0 else 8
-    use_tri_pe = not sparse_g0  # reference: method 4 hardcodes sinusoidal
-    mlp = init_mlp(k2, c * (n_corners + 1) + pe * 3 + 1, 16, 3)
-
-    want = np.asarray(
-        fast_decode(fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=use_tri_pe, ndim=3,
-                    sparse_g0=sparse_g0)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_volume_fused(
-                fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=use_tri_pe, sparse_g0=sparse_g0,
-            )
-        )
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
-@pytest.mark.parametrize("sparse_g0", [False, True])
-def test_fused_3d_i16_mode(sparse_g0):
-    """dtype="i16" on the 3D kernel (round 5): int16 fixed-point planes
-    with a shared analytic scale + bf16 MXU dots — the movie family's
-    exact-class fast mode. Must sit within one u8 step of the fp32
-    folded decode."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_3d import decode_volume_fused
-
-    image_size, base, c, pe = 32, 8, 4, 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(29))
-    fp, _ = create_pyramid(k1, base, channels=c, num_bits=8, ndim=3)
-    m2l = pyramid_mip_levels(image_size, base)
-    n_corners = 4 if sparse_g0 else 8
-    use_tri_pe = not sparse_g0
-    mlp = init_mlp(k2, c * (n_corners + 1) + pe * 3 + 1, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=use_tri_pe, ndim=3,
-                    sparse_g0=sparse_g0)
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_volume_fused(
-                fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=use_tri_pe, sparse_g0=sparse_g0,
-                dtype="i16", gelu="exact",
-            )
-        )
-    u8 = lambda a: np.clip(a * 255 + 0.5, 0, 255).astype(np.int32)
-    assert np.abs(got - want).max() < 3e-3
-    assert np.abs(u8(got) - u8(want)).max() <= 1
-
-
-def test_fused_3d_lane_packed_multiblock():
-    """hidden=64 (reference default) → the packed block-diagonal path;
-    block_rows/cols below the frame size force a multi-block grid with
-    the per-frame halo windows and the column-block-major retile."""
-    import nic.kernels.decode_fused_3d as k3mod
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_3d import decode_volume_fused
-
-    image_size, base, c, pe, hidden = 32, 8, 12, 6, 64
-    k1, k2 = jax.random.split(jax.random.PRNGKey(13))
-    fp, _ = create_pyramid(k1, base, channels=c, num_bits=8, ndim=3)
-    m2l = pyramid_mip_levels(image_size, base)
-    mlp = init_mlp(k2, c * 9 + pe * 3 + 1, hidden, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=True, ndim=3)
-    )
-    seen = {}
-    orig = k3mod._call3
-
-    def spy(*a, **kw):
-        seen["packed"] = kw.get("packed")
-        return orig(*a, **kw)
-
-    k3mod._call3 = spy
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(
-                decode_volume_fused(
-                    fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=True,
-                )
-            )
-            got2 = np.asarray(
-                decode_volume_fused(
-                    fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=True, block_rows=16,
-                    block_cols=16,
-                )
-            )
-    finally:
-        k3mod._call3 = orig
-    assert seen["packed"] is True
-    np.testing.assert_allclose(got, want, atol=2e-5)
-    np.testing.assert_allclose(got2, want, atol=2e-5)
-
-
-@pytest.mark.parametrize("mip", [0, 1, 2, 4])
-def test_fused_v2_z1_matmul_parity(mip):
-    """z1_matmul routes the z1 build (P row-upsample + C1 row-interp)
-    through the MXU against static matrices; same values as the VPU
-    per-row kernel up to f32 summation order. Mips cover f ∈ {4, 2, 1}
-    and both fl levels."""
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size = 64
-    base = image_size // 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(11))
-    fp, _ = create_pyramid(k1, base, channels=4, num_bits=8, ndim=2)
-    mip_to_level = pyramid_mip_levels(image_size, base)
-    pe = 4
-    mlp = init_mlp(k2, 4 * 5 + pe * 2 + 1, 16, 3)
-    kw = dict(image_size=image_size, mip_to_level=mip_to_level,
-              pe_channels=pe, use_tri_pe=True)
-    with pltpu.force_tpu_interpret_mode():
-        vpu = np.asarray(decode_image_fused_v2(fp, mlp, mip, **kw))
-        mxu = np.asarray(
-            decode_image_fused_v2(fp, mlp, mip, z1_matmul=True, **kw)
-        )
-    np.testing.assert_allclose(mxu, vpu, atol=1e-5)
-
-
-def test_fused_v2_z1_matmul_auto_packed():
-    """z1_matmul="auto" must resolve to the MXU kernel exactly on the
-    lane-packed geometry (hidden 64 → 128 post-pack) and stay bit-near
-    the XLA fast path there."""
-    import nic.kernels.decode_fused_v2 as v2mod
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_v2 import decode_image_fused_v2
-
-    image_size, base, c, pe, hidden = 128, 32, 12, 6, 64
-    k1, k2 = jax.random.split(jax.random.PRNGKey(13))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, hidden, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, ndim=2)
-    )
-    seen = {}
-    orig = v2mod._call
-
-    def spy(*a, **kw):
-        seen["z1mm"] = kw.get("z1mm")
-        seen["packed"] = kw.get("packed")
-        return orig(*a, **kw)
-
-    v2mod._call = spy
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(
-                decode_image_fused_v2(
-                    fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, z1_matmul="auto",
-                )
-            )
-            # multi-column-block grid: the pre-gathered halo blocks must
-            # tile correctly per column block too
-            got2 = np.asarray(
-                decode_image_fused_v2(
-                    fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, z1_matmul="auto", block_cols=64,
-                )
-            )
-    finally:
-        v2mod._call = orig
-    assert seen["packed"] is True and seen["z1mm"] is True
-    np.testing.assert_allclose(got, want, atol=2e-5)
-    np.testing.assert_allclose(got2, want, atol=2e-5)
-
-
-def test_thumbnail_mips_fall_back_not_crash():
-    """e ≥ 2 thumbnail mips must take the XLA fallback (pre-round-5 the
-    kernel entries crashed on a negative shift computing f1 when called
-    directly), and the pure-geometry predicates must say so without
-    doing any compute."""
-    from nic.grids.fastdecode import fast_decode
-    from nic.kernels.decode_fused_3d import (decode_volume_fused,
-                                             kernel_covers_3d)
-    from nic.kernels.decode_fused_v2 import (decode_image_fused_v2,
-                                             kernel_covers_2d)
-
-    image_size, base, c, pe = 32, 8, 4, 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(13))
-    fp, _ = create_pyramid(k1, base, channels=c, num_bits=8, ndim=2,
-                           no_mip=True)
-    m2l = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, 16, 3)
-    # find a thumbnail mip with e >= 2 in the map
-    mips = [m for m in sorted(m2l) if m - (m2l[m] + 1) * 2 >= 2]
-    assert mips, "protocol map should contain an e>=2 thumbnail mip"
-    mip = mips[0]
-    assert not kernel_covers_2d(mip, image_size, m2l, mlp["w2"].shape[0])
-    got = np.asarray(decode_image_fused_v2(
-        fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-        pe_channels=pe))
-    want = np.asarray(fast_decode(
-        fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-        pe_channels=pe, ndim=2))
-    np.testing.assert_allclose(got, want, atol=2e-5)
-    # covered geometries still report True
-    assert kernel_covers_2d(0, image_size, m2l, mlp["w2"].shape[0])
-
-    fp3, _ = create_pyramid(k1, base, channels=c, num_bits=8, ndim=3,
-                            no_mip=True)
-    m2l3 = pyramid_mip_levels(image_size, base, no_mip=True)
-    mlp3 = init_mlp(k2, c * 9 + pe * 3 + 1, 16, 3)
-    mips3 = [m for m in sorted(m2l3) if m - (m2l3[m] + 1) * 2 >= 2]
-    assert mips3, "3D map should contain an e>=2 thumbnail mip"
-    assert not kernel_covers_3d(mips3[0], image_size, m2l3,
-                                mlp3["w2"].shape[0])
-    got3 = np.asarray(decode_volume_fused(
-        fp3, mlp3, mips3[0], image_size=image_size, mip_to_level=m2l3,
-        pe_channels=pe, use_tri_pe=True, sparse_g0=False))
-    want3 = np.asarray(fast_decode(
-        fp3, mlp3, mips3[0], image_size=image_size, mip_to_level=m2l3,
-        pe_channels=pe, ndim=3))
-    np.testing.assert_allclose(got3, want3, atol=2e-5)
-    assert kernel_covers_3d(0, image_size, m2l3, mlp3["w2"].shape[0])
-
-
-def test_kernel_covers_predicates_match_prepare_gates():
-    """kernel_covers_2d/3d duplicate the _prepare gate arithmetic so the
-    CLI can report fallbacks without doing the fold — lock the two
-    together across the protocol's whole mip range so they can't drift."""
-    from nic.kernels import decode_fused_3d as k3
-    from nic.kernels import decode_fused_v2 as k2
-
-    image_size, base, c, pe = 32, 8, 4, 4
-    k1, kk = jax.random.split(jax.random.PRNGKey(17))
-    mlp = init_mlp(kk, c * 5 + pe * 2 + 1, 16, 3)
-    for no_mip in (True, False):
-        fp, _ = create_pyramid(k1, base, channels=c, num_bits=8, ndim=2,
-                               no_mip=no_mip)
-        m2l = pyramid_mip_levels(image_size, base, no_mip=no_mip)
-        for mip in sorted(m2l):
-            prep = k2._prepare_2d(
-                fp, mlp, mip, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=True, dtype=None,
-                block_rows=None, block_cols=None)
-            assert k2.kernel_covers_2d(
-                mip, image_size, m2l, mlp["w2"].shape[0]) == (
-                prep is not None), f"2D drift at mip={mip} no_mip={no_mip}"
-
-    mlp3 = init_mlp(kk, c * 9 + pe * 3 + 1, 16, 3)
-    for no_mip in (True, False):
-        fp3, _ = create_pyramid(k1, base, channels=c, num_bits=8, ndim=3,
-                                no_mip=no_mip)
-        m2l3 = pyramid_mip_levels(image_size, base, no_mip=no_mip)
-        for mip in sorted(m2l3):
-            prep = k3._prepare_3d(
-                fp3, mlp3, mip, image_size=image_size, mip_to_level=m2l3,
-                pe_channels=pe, use_tri_pe=True, sparse_g0=False,
-                dtype=None, block_rows=None, block_cols=None)
-            assert k3.kernel_covers_3d(
-                mip, image_size, m2l3, mlp3["w2"].shape[0]) == (
-                prep is not None), f"3D drift at mip={mip} no_mip={no_mip}"
+@pytest.mark.gpu
+def test_kernel_on_gpu(gpu):
+    """On the card: the compiled kernel against the float32 reference at
+    flagship width (run by ``pytest -m gpu`` on a GPU machine)."""
+    fp, mlp, m2l = _setup(size=512, c=12, pe=6, hidden=64, no_mip=True)
+    kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(decode(fp, mlp, 0, backend="xla", **kw))
+    for dtype in ("fp32", "bf16"):
+        got = np.asarray(decode(fp, mlp, 0, backend="pallas", dtype=dtype,
+                                **kw))
+        assert np.abs(_u8(got) - _u8(ref)).max() <= (1 if dtype == "fp32"
+                                                     else 2)

@@ -1,5 +1,5 @@
-"""Multi-device sharding tests on the 8-device virtual CPU mesh
-(the TPU-world substitute for fake-cluster fixtures — SURVEY.md §4)."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh (the
+reference has no fake-cluster fixtures — SURVEY.md §4)."""
 
 import numpy as np
 import jax
@@ -92,8 +92,8 @@ def test_cli_data_parallel_flag(tmp_path):
 @requires_8
 def test_movie_label_frames_data_parallel_parity():
     """Frames sharded over 'data' must train to the same params as
-    single-device (VERDICT #7: frame-axis parallelism for the movie
-    family — params replicated, per-frame grads psum over the mesh)."""
+    single-device (frame-axis parallelism for the movie family: params
+    replicated, per-frame grads psum over the mesh)."""
     from nic.train.movie_label import MovieLabelTrainer
 
     rng = np.random.default_rng(0)
@@ -188,141 +188,59 @@ def test_hyperprior_data_parallel_parity():
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
 
 
-@requires_8
-def test_sharded_fused_decode_rect_parity():
-    """Row-sharded RECTANGULAR fused decode (round 5): rows split per
-    device, per-axis column counts ride the kernel's rectangular tile
-    grid. Must match the per-axis folded XLA decode."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from nic.grids.fastdecode import fast_decode
-    from nic.grids.pyramid import create_pyramid, pyramid_mip_levels
-    from nic.kernels.decode_sharded import decode_image_fused_sharded
-    from nic.models.mlp import init_mlp
-    from nic.parallel.mesh import make_mesh
-
-    hw, c, pe = (64, 96), 4, 4
-    base = tuple(s // 4 for s in hw)
-    k1, k2 = jax.random.split(jax.random.PRNGKey(13))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2, no_mip=True)
-    m2l = pyramid_mip_levels(hw[0], min(base), no_mip=True)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=hw[0], mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=True, ndim=2, n=hw)
-    )
-    mesh = make_mesh(4, data_axis=4)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_sharded(
-                fp, mlp, 0, mesh, image_size=hw, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=True,
-            )
-        )
-    assert got.shape == hw + (3,)
-    np.testing.assert_allclose(got, want, atol=2e-5)
+_SHARD_GEOMS = {
+    # name: (ndim, hw, sparse_g0, mip)
+    "2d": (2, (64, 64), False, 0),
+    "2d-mip1": (2, (64, 64), False, 1),
+    "rect": (2, (64, 96), False, 0),
+    "3d-m3": (3, (16, 16, 16), False, 0),
+    "3d-m4": (3, (16, 16, 16), True, 0),
+}
 
 
 @requires_8
-def test_sharded_fused_decode_2d_parity():
-    """Row-sharded fused decode (shard_map over the mesh) must be
-    bit-near the XLA fast path — device k decodes rows [k·n/D, (k+1)·n/D)
-    with the C1 interpolation halo duplicated host-side."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from nic.grids.fastdecode import fast_decode
+@pytest.mark.parametrize("geom,backend", [
+    (g, "pallas") for g in sorted(_SHARD_GEOMS)] + [("2d", "fast"),
+                                                   ("3d-m4", "fast")])
+def test_sharded_decode_matches_single_device(geom, backend):
+    """Rows (2D) / frames (3D) split one block per device, each decoded
+    by the single-device decode at its origin: the same values as one
+    device decoding everything."""
     from nic.grids.pyramid import create_pyramid, pyramid_mip_levels
-    from nic.kernels.decode_sharded import decode_image_fused_sharded
+    from nic.kernels.decode import decode
+    from nic.kernels.decode_sharded import decode_sharded
     from nic.models.mlp import init_mlp
 
-    image_size, base, c, pe = 64, 16, 4, 4
-    k1, k2 = jax.random.split(jax.random.PRNGKey(3))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=2)
-    m2l = pyramid_mip_levels(image_size, base)
-    mlp = init_mlp(k2, c * 5 + pe * 2 + 1, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=True, ndim=2)
-    )
-    mesh = make_mesh(4, data_axis=4)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_image_fused_sharded(
-                fp, mlp, 0, mesh, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=True,
-            )
-        )
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=2e-5)
-
-
-@requires_8
-@pytest.mark.parametrize("sparse_g0", [False, True])
-def test_sharded_fused_decode_3d_parity(sparse_g0):
-    """Frame-sharded 3D fused decode (methods 3 and 4) must match the XLA
-    fast path — per-frame planes split disjointly, no halo."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from nic.grids.fastdecode import fast_decode
-    from nic.grids.pyramid import create_pyramid, pyramid_mip_levels
-    from nic.kernels.decode_sharded import decode_volume_fused_sharded
-    from nic.models.mlp import init_mlp
-
-    image_size, base, c, pe = 16, 4, 4, 4
+    ndim, hw, sparse, mip = _SHARD_GEOMS[geom]
+    c, pe = 4, 4
+    base = tuple(s // 4 for s in hw[:2]) if ndim == 2 else hw[0] // 4
     k1, k2 = jax.random.split(jax.random.PRNGKey(5))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=3)
-    m2l = pyramid_mip_levels(image_size, base)
-    n_in = c * (5 if sparse_g0 else 9) + pe * 3 + 1
-    mlp = init_mlp(k2, n_in, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=False, ndim=3,
-                    sparse_g0=sparse_g0)
-    )
-    mesh = make_mesh(4, data_axis=4)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            decode_volume_fused_sharded(
-                fp, mlp, 0, mesh, image_size=image_size, mip_to_level=m2l,
-                pe_channels=pe, use_tri_pe=False, sparse_g0=sparse_g0,
-            )
-        )
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=2e-5)
+    fp, _ = create_pyramid(k1, base, c, 8, ndim=ndim)
+    m2l = pyramid_mip_levels(hw[0], min(hw) // 4)
+    corners = 4 if sparse else 2**ndim
+    mlp = init_mlp(k2, c * (corners + 1) + pe * ndim + 1, 16, 3)
+    n = tuple(s >> mip for s in hw)
+    kw = dict(backend=backend, image_size=hw[0], mip_to_level=m2l,
+              pe_channels=pe, use_tri_pe=not sparse, ndim=ndim,
+              sparse_g0=sparse, n=n)
+    want = np.asarray(decode(fp, mlp, mip, **kw))
+    got = np.asarray(decode_sharded(fp, mlp, mip, make_mesh(4, data_axis=4),
+                                    **kw))
+    assert got.shape == n + (3,)
+    np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-@requires_8
-@pytest.mark.parametrize("ndim", [2, 3])
-def test_sharded_fused_decode_i16_parity(ndim):
-    """The i16 plane mode must survive the shard_map split: the scale is
-    a replicated operand, planes shard by rows (2D) / frames (3D).
-    Within one u8 step of the fp32 fast path on every device's slice."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from nic.grids.fastdecode import fast_decode
+def test_sharded_decode_rejects_uneven_rows():
     from nic.grids.pyramid import create_pyramid, pyramid_mip_levels
-    from nic.kernels.decode_sharded import (decode_image_fused_sharded,
-                                            decode_volume_fused_sharded)
+    from nic.kernels.decode_sharded import decode_sharded, shardable
     from nic.models.mlp import init_mlp
 
-    image_size, base, c, pe = (64, 16, 4, 4) if ndim == 2 else (16, 4, 4, 4)
-    k1, k2 = jax.random.split(jax.random.PRNGKey(31))
-    fp, _ = create_pyramid(k1, base, c, 8, ndim=ndim)
-    m2l = pyramid_mip_levels(image_size, base)
-    n_in = c * (2**ndim + 1) + pe * ndim + 1
-    mlp = init_mlp(k2, n_in, 16, 3)
-    want = np.asarray(
-        fast_decode(fp, mlp, 0, image_size=image_size, mip_to_level=m2l,
-                    pe_channels=pe, use_tri_pe=(ndim == 2), ndim=ndim)
-    )
+    fp, _ = create_pyramid(jax.random.PRNGKey(0), 4, 4, 8, ndim=2)
+    mlp = init_mlp(jax.random.PRNGKey(1), 4 * 5 + 4 * 2 + 1, 16, 3)
     mesh = make_mesh(4, data_axis=4)
-    entry = (decode_image_fused_sharded if ndim == 2
-             else decode_volume_fused_sharded)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(
-            entry(fp, mlp, 0, mesh, image_size=image_size, mip_to_level=m2l,
-                  pe_channels=pe, use_tri_pe=(ndim == 2), dtype="i16")
-        )
-    u8 = lambda a: np.clip(a * 255 + 0.5, 0, 255).astype(np.int32)
-    assert got.shape == want.shape
-    assert np.abs(u8(got) - u8(want)).max() <= 1
+    assert shardable((16, 16), mesh) and not shardable((6, 16), mesh)
+    assert not shardable((16, 16), None)
+    with pytest.raises(ValueError, match="do not split"):
+        decode_sharded(fp, mlp, 0, mesh, backend="fast", image_size=16,
+                       mip_to_level=pyramid_mip_levels(16, 4),
+                       pe_channels=4, n=(6, 16))

@@ -54,12 +54,9 @@ def test_rect_kodak_shape_trains():
 
 
 def test_rect_trainer_pallas_backend_matches_fast():
-    """Rectangular decode through DECODE_BACKEND=pallas (the fused v2
-    kernel's rectangular tile grid — round-5 directive #1) must match the
-    folded XLA backend bit-near. Before round 5 rect silently fell back
-    to the 0.1 GPix/s folded path."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    """Rectangular decode through DECODE_BACKEND=pallas (the Triton
+    kernel, ndim-generic over per-axis sizes) must match the folded XLA
+    backend."""
     outs = {}
     for backend in ("fast", "pallas"):
         cfg = _cfg(image_size=32, image_size_w=64, crop_mip_level=4,
@@ -68,16 +65,15 @@ def test_rect_trainer_pallas_backend_matches_fast():
                    hidden_layer_channels=16, seed=0,
                    decode_backend=backend)
         tr = NTCTrainer(cfg, load_asset(cfg))
-        with pltpu.force_tpu_interpret_mode():
-            outs[backend] = np.asarray(tr.decode(0, div_size=10))
+        outs[backend] = np.asarray(tr.decode(0, div_size=10))
     assert outs["pallas"].shape == (32, 64, 3)
     np.testing.assert_allclose(outs["pallas"], outs["fast"], atol=2e-5)
 
 
 def test_rect_decode_runtime_pallas_backend(tmp_path):
     """The decoder-only runtime must route a rectangular artifact through
-    the fused kernel when --backend pallas is requested (interpret mode
-    off-TPU) and reproduce the folded decode."""
+    the Triton kernel when --backend pallas is requested and reproduce the
+    folded decode."""
     from nic.cli.decode import run as decode_main
     from nic.io.artifacts import save_compressed
 
